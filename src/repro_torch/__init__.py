@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the serverless-MoE serving path.
+"""PyTorch/CUDA port of the serverless-MoE system: the serving path and
+the paper's runtime loop (:mod:`repro_torch.core.runtime`: profile,
+predict, ODS/BO plan, bill, serve, re-plan).
 
 A second package beside the JAX reference ``repro``: it imports torch and
 numpy only, never ``jax`` and nothing under ``repro``. Module names and

@@ -14,8 +14,9 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.expert_ffn.ops import capacity_ffn
 from repro_torch.kernels.grouped_moe.ops import grouped_moe_ffn
-from repro_torch.kernels.router_topk.ops import router_topk_fused
+from repro_torch.kernels.router_topk.ops import router_topk, router_topk_fused
 
 
 class PortedKernel(NamedTuple):
@@ -34,6 +35,12 @@ KERNELS: Dict[str, PortedKernel] = {
     "decode_attention": PortedKernel(
         decode_attention, "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:71"),
+    "capacity_ffn": PortedKernel(
+        capacity_ffn, "src/repro_torch/kernels/csrc/expert_ffn.cu",
+        "src/repro/kernels/expert_ffn/kernel.py:66"),
+    "router_topk": PortedKernel(
+        router_topk, "src/repro_torch/kernels/csrc/router_topk.cu",
+        "src/repro/kernels/router_topk/kernel.py:131"),
 }
 
 

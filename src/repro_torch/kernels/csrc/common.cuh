@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA kernels: element loads in float32
 // from float32 or bfloat16 storage, stores back, dtype codes matching
-// the Python wrappers, and the exported error-string entry point.
+// the Python wrappers, warp reductions, the FFN activations and the
+// exported error-string entry point.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,17 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// the FFN activations: silu, and gelu in its tanh form (jax.nn.gelu's
+// default)
+__device__ __forceinline__ float silu_f(float g) {
+  return g / (1.f + expf(-g));
+}
+
+__device__ __forceinline__ float gelu_tanh_f(float g) {
+  const float c = 0.7978845608028654f;   // sqrt(2 / pi)
+  return 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g)));
 }
 
 #define REPRO_EXPORT_ERROR_STRING                                  \

@@ -7,7 +7,10 @@
 // q (B, N, G, D), k/v (B, T, N, D) with any batch and T strides (the last
 // two axes contiguous), valid_len (B,) int32 -> out (B, N, G, D). Slots at
 // or past valid_len[b] are masked; scores are scaled by D^-1/2; the
-// output is acc / max(l, 1e-30).
+// output is acc / max(l, 1e-30). The Pallas kernel masks a score to
+// -1e30, so a row with valid_len 0 weighs all T slots alike
+// (p = exp(0) = 1): its output is the mean of V over the T rows passed
+// in, and so it is here.
 //
 // What bounds it on H100: one pass over the valid K and V rows; it is
 // bound by bytes (2 * valid * N * D * bytes per element per row), and at
@@ -119,6 +122,21 @@ __global__ void decode_attn_kernel(const T* __restrict__ q,
         acc[i] = a;
       }
     }
+    __syncthreads();
+  }
+  if (tv == 0) {   // every slot masked: the mean of V over all T rows
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i) {
+      const int p = threadIdx.x + THREADS * i;
+      if (p < GD) {
+        const int d = p % D;
+        float a = 0.f;
+        for (int tt = 0; tt < T_len; ++tt)
+          a += to_f32(vb[(size_t)tt * v_st + d]);
+        acc[i] = a;
+      }
+    }
+    if (threadIdx.x < G) l_s[threadIdx.x] = (float)T_len;
     __syncthreads();
   }
   T* ob = out + ((size_t)b * N + n) * GD;

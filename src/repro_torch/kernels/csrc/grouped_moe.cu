@@ -47,15 +47,6 @@
 #define SLICE_MIN 64      // shortest reduction slice a block takes
 #define TARGET_BLOCKS 528 // 4 blocks for each of the 132 SMs
 
-__device__ __forceinline__ float silu_f(float g) {
-  return g / (1.f + expf(-g));
-}
-
-__device__ __forceinline__ float gelu_tanh_f(float g) {
-  const float c = 0.7978845608028654f;   // sqrt(2 / pi)
-  return 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g)));
-}
-
 // Reduction slices for a product over K with `blocks` blocks of output.
 static int splits_for(int blocks, int K) {
   const int want = (TARGET_BLOCKS + blocks - 1) / blocks;

@@ -5,7 +5,9 @@
 //
 // Replaces: src/repro/kernels/router_topk/kernel.py,
 //           router_topk_fused_kernel (body _router_fused_kernel, shared
-//           math _tile_topk).
+//           math _tile_topk), entry router_topk_fused; and
+//           router_topk_kernel (body _router_kernel), entry router_topk,
+//           which launches the gate kernel alone (weights and indices).
 //
 // What bounds it on H100: at serving shapes (N <= a few hundred tokens,
 // D 768..2048, E <= 128) the work is tiny: N*D*E*2 FLOPs and one read of
@@ -22,7 +24,8 @@
 //      the slices are summed by a fixed tree in shared memory. Warp 0 then
 //      does the softmax with shuffles (lanes over experts, E <= 128) and
 //      k rounds of (max, lowest index among equal maxima). It writes the
-//      weights, the indices, the token's probabilities and lse^2.
+//      weights, the indices and, for the fused entry, the token's
+//      probabilities and lse^2 (router_topk passes null for both).
 //   2. router_tile_kernel: per tile of 64 tokens and per expert (one
 //      thread each), the tile's pair count, prob mass and sum of lse^2,
 //      each summed in token order.
@@ -93,9 +96,9 @@ __global__ void router_gate_kernel(const T* __restrict__ x,
     const int e = lane + 32 * j;
     p[j] = p[j] / psum;
     work[j] = e < E ? p[j] : -INFINITY;
-    if (e < E) probs[(size_t)n * E + e] = p[j];
+    if (e < E && probs != nullptr) probs[(size_t)n * E + e] = p[j];
   }
-  if (lane == 0) {
+  if (lane == 0 && lse2 != nullptr) {
     const float lse = m + logf(psum);
     lse2[n] = lse * lse;
   }
@@ -236,6 +239,31 @@ extern "C" int router_topk_fused(const void* x, const void* w, int dtype,
       static_cast<const float*>(tile_prob), static_cast<const float*>(tile_z),
       N, E, k, ntiles, static_cast<int*>(pos), static_cast<int*>(counts),
       static_cast<float*>(stats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Gating only: the weights and indices of router_topk_kernel, one launch.
+extern "C" int router_topk(const void* x, const void* w, int dtype, int N,
+                           int D, int E, int k, int valid_experts,
+                           void* vals, void* idx, void* stream) {
+  if (N < 1 || E < 1 || E > MAX_E || k < 1 || k > MAX_K || k > E)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e_pad = 1;
+  while (e_pad < E) e_pad <<= 1;
+  if (dtype == REPRO_F32) {
+    router_gate_kernel<float><<<N, GATE_THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), D, E,
+        e_pad, k, valid_experts, static_cast<float*>(vals),
+        static_cast<int*>(idx), nullptr, nullptr);
+  } else if (dtype == REPRO_BF16) {
+    router_gate_kernel<__nv_bfloat16><<<N, GATE_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), D, E, e_pad, k, valid_experts,
+        static_cast<float*>(vals), static_cast<int*>(idx), nullptr, nullptr);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
-"""Wrapper of the fused router kernel (``csrc/router_topk.cu``).
+"""Wrappers of the router kernels (``csrc/router_topk.cu``): the fused
+router (B1) and the gating-only router (B5).
 
-For CPU tensors it returns the plain version (:mod:`.ref`); for CUDA
-tensors it launches the kernel or raises. ``router_topk_fused.launches``
-counts kernel launches.
+For CPU tensors they return the plain versions (:mod:`.ref`); for CUDA
+tensors they launch the kernel or raise. ``router_topk_fused.launches``
+and ``router_topk.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._common import (INT, PTR, dtype_code, ptr,
                                          require_contiguous, require_cuda,
                                          require_same_dtype, stream_ptr)
-from repro_torch.kernels.router_topk.ref import router_topk_fused_ref
+from repro_torch.kernels.router_topk.ref import (router_topk_fused_ref,
+                                                 router_topk_ref)
 
 MAX_EXPERTS, MAX_K, TILE_TOKENS = 128, 8, 64   # csrc/router_topk.cu
 
@@ -25,7 +27,53 @@ def _lib():
                                       PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                       PTR, PTR, PTR]
     lib.router_topk_fused.restype = INT
+    lib.router_topk.argtypes = [PTR, PTR, INT, INT, INT, INT, INT, INT, PTR,
+                                PTR, PTR]
+    lib.router_topk.restype = INT
     return lib
+
+
+def _check_args(what: str, x: torch.Tensor, router_w: torch.Tensor,
+                k: int) -> int:
+    """Validate a CUDA call; returns the dtype code."""
+    require_cuda([x, router_w], what)
+    require_same_dtype([x, router_w], what)
+    require_contiguous([x, router_w], what)
+    code = dtype_code(x, what)
+    if x.dim() != 2 or router_w.dim() != 2 or x.shape[1] != router_w.shape[0]:
+        raise ValueError(f"{what}: shapes {tuple(x.shape)} x "
+                         f"{tuple(router_w.shape)} do not chain")
+    N = x.shape[0]
+    E = router_w.shape[1]
+    if N < 1 or not 1 <= E <= MAX_EXPERTS or not 1 <= k <= min(MAX_K, E):
+        raise ValueError(f"{what}: needs N >= 1, E <= {MAX_EXPERTS}, "
+                         f"k <= min({MAX_K}, E); got N={N} E={E} k={k}")
+    return code
+
+
+def router_topk(x: torch.Tensor, router_w: torch.Tensor, *, k: int,
+                valid_experts: Optional[int] = None):
+    """Gating only: x (N, D), router_w (D, E), same dtype (float32 or
+    bfloat16), E <= 128, k <= min(8, E); experts at or past
+    ``valid_experts`` are masked. Returns ``(vals (N, k) f32, idx (N, k)
+    i32)``, the weights renormalized to sum 1 and ties to the lowest
+    index: the contract of the reference's ``router_topk_pallas``. One
+    launch of the fused router's gate kernel."""
+    if x.device.type == "cpu" and router_w.device.type == "cpu":
+        return router_topk_ref(x, router_w, k=k, valid_experts=valid_experts)
+    what = "router_topk"
+    code = _check_args(what, x, router_w, k)
+    N, D = x.shape
+    E = router_w.shape[1]
+    ve = E if valid_experts is None else int(valid_experts)
+    vals = torch.empty((N, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((N, k), dtype=torch.int32, device=x.device)
+    lib = _lib()
+    status = lib.router_topk(ptr(x), ptr(router_w), code, N, D, E, k, ve,
+                             ptr(vals), ptr(idx), stream_ptr(x.device))
+    _build.check(lib, status, what)
+    router_topk.launches += 1
+    return vals, idx
 
 
 def router_topk_fused(x: torch.Tensor, router_w: torch.Tensor, *, k: int,
@@ -42,18 +90,9 @@ def router_topk_fused(x: torch.Tensor, router_w: torch.Tensor, *, k: int,
         return router_topk_fused_ref(x, router_w, k=k,
                                      valid_experts=valid_experts)
     what = "router_topk_fused"
-    require_cuda([x, router_w], what)
-    require_same_dtype([x, router_w], what)
-    require_contiguous([x, router_w], what)
-    code = dtype_code(x, what)
-    if x.dim() != 2 or router_w.dim() != 2 or x.shape[1] != router_w.shape[0]:
-        raise ValueError(f"{what}: shapes {tuple(x.shape)} x "
-                         f"{tuple(router_w.shape)} do not chain")
+    code = _check_args(what, x, router_w, k)
     N, D = x.shape
     E = router_w.shape[1]
-    if N < 1 or not 1 <= E <= MAX_EXPERTS or not 1 <= k <= min(MAX_K, E):
-        raise ValueError(f"{what}: needs N >= 1, E <= {MAX_EXPERTS}, "
-                         f"k <= min({MAX_K}, E); got N={N} E={E} k={k}")
     ve = E if valid_experts is None else int(valid_experts)
     dev = x.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -80,3 +119,4 @@ def router_topk_fused(x: torch.Tensor, router_w: torch.Tensor, *, k: int,
 
 
 router_topk_fused.launches = 0
+router_topk.launches = 0

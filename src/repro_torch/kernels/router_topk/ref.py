@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the fused router (what ``csrc/router_topk.cu``
-computes): the CPU path of the wrapper and the card's comparison."""
+"""Plain PyTorch versions of the router kernels (what
+``csrc/router_topk.cu`` computes): the CPU path of the wrappers and the
+card's comparison."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -51,10 +52,9 @@ def stable_ranks(idx: torch.Tensor, num_experts: int
     return pos.to(torch.int32), oh.sum(0).to(torch.int32)
 
 
-def router_topk_fused_ref(x: torch.Tensor, router_w: torch.Tensor, *,
-                          k: int, valid_experts: Optional[int] = None):
-    """Returns ``(vals (N, k) f32, idx (N, k) i32, pos_in_e (N, k) i32,
-    counts (E,) i32, probs_sum (E,) f32, z_sq_sum () f32)``."""
+def _gate(x: torch.Tensor, router_w: torch.Tensor, k: int,
+          valid_experts: Optional[int]):
+    """(probs (N, E), logsumexp (N,), normalized top-k weights, indices)."""
     logits = masked_logits(x, router_w, valid_experts)
     m = logits.max(-1, keepdim=True).values
     p = torch.exp(logits - m)
@@ -63,5 +63,21 @@ def router_topk_fused_ref(x: torch.Tensor, router_w: torch.Tensor, *,
     lse = (m + torch.log(psum))[:, 0]
     vals, idx = topk_lowest_index(probs, k)
     vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    pos, counts = stable_ranks(idx, logits.shape[-1])
+    return probs, lse, vals, idx
+
+
+def router_topk_ref(x: torch.Tensor, router_w: torch.Tensor, *, k: int,
+                    valid_experts: Optional[int] = None):
+    """Gating only: ``(vals (N, k) f32, idx (N, k) i32)``, the contract of
+    the reference's ``router_topk_pallas``."""
+    _, _, vals, idx = _gate(x, router_w, k, valid_experts)
+    return vals, idx
+
+
+def router_topk_fused_ref(x: torch.Tensor, router_w: torch.Tensor, *,
+                          k: int, valid_experts: Optional[int] = None):
+    """Returns ``(vals (N, k) f32, idx (N, k) i32, pos_in_e (N, k) i32,
+    counts (E,) i32, probs_sum (E,) f32, z_sq_sum () f32)``."""
+    probs, lse, vals, idx = _gate(x, router_w, k, valid_experts)
+    pos, counts = stable_ranks(idx, router_w.shape[-1])
     return vals, idx, pos, counts, probs.sum(0), (lse * lse).sum()

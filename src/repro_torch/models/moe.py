@@ -4,7 +4,9 @@ Counterpart of ``repro.models.moe``. One routing front-end feeds three
 executors, selected by ``moe_forward(..., executor=...)``:
 
 * ``"dense"``   -- capacity buffers ``(E, C, d)``; overflowing pairs are
-  dropped (plain torch).
+  dropped; the expert compute is the capacity FFN kernel
+  (``repro_torch.kernels.expert_ffn``: the Hopper kernel for CUDA
+  tensors, its plain version for CPU tensors).
 * ``"grouped"`` -- dropless ragged grouped FFN over expert-sorted rows in
   block-aligned groups; the expert compute is the grouped kernel
   (``repro_torch.kernels.grouped_moe``: the Hopper kernel for CUDA
@@ -35,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig, ModelConfig
+from repro_torch.kernels.expert_ffn.ops import capacity_ffn
 from repro_torch.kernels.grouped_moe.ops import BLOCK_ROWS, grouped_moe_ffn
 from repro_torch.kernels.router_topk.ops import router_topk_fused
 from repro_torch.kernels.router_topk.ref import masked_logits, topk_lowest_index
@@ -360,18 +363,18 @@ def grouped_expert_ffn(params: Params, buf: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Expert FFN on capacity buffers / every expert (plain torch)
+# Expert FFN on capacity buffers (kernel) / every expert (plain torch)
 # ---------------------------------------------------------------------------
 
 def expert_ffn(params: Params, buf: torch.Tensor,
                activation: str) -> torch.Tensor:
-    """buf: (E, C, d) -> (E, C, d); batched over experts."""
+    """buf: (E, C, d) -> (E, C, d) through the capacity FFN kernel's
+    wrapper."""
     if activation == "swiglu":
-        g = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
-        u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
-        return torch.einsum("ecf,efd->ecd", F.silu(g) * u, params["w_down"])
-    h = gelu(torch.einsum("ecd,edf->ecf", buf, params["w_in"]))
-    return torch.einsum("ecf,efd->ecd", h, params["w_out"])
+        return capacity_ffn(buf, params["w_gate"], params["w_up"],
+                            params["w_down"], activation="swiglu")
+    return capacity_ffn(buf, params["w_in"], None, params["w_out"],
+                        activation="gelu")
 
 
 def _all_experts_out(params: Params, activation: str,

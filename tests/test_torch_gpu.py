@@ -20,10 +20,13 @@ import torch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.expert_ffn.ops import capacity_ffn
+from repro_torch.kernels.expert_ffn.ref import capacity_ffn_ref
 from repro_torch.kernels.grouped_moe.ops import grouped_moe_ffn
 from repro_torch.kernels.grouped_moe.ref import grouped_moe_ref
-from repro_torch.kernels.router_topk.ops import router_topk_fused
-from repro_torch.kernels.router_topk.ref import router_topk_fused_ref
+from repro_torch.kernels.router_topk.ops import router_topk, router_topk_fused
+from repro_torch.kernels.router_topk.ref import (router_topk_fused_ref,
+                                                 router_topk_ref)
 
 TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -112,6 +115,33 @@ GROUPED_CASES = [
 ]
 
 
+def capacity_inputs(E, C, D, F, *, seed=0, zero=False):
+    """Dense capacity buffers (E, C, D) as the dense executor fills them:
+    random rows, the last quarter of each expert's slots empty (zero), or
+    every slot empty under ``zero``; fan-in scaled expert weights."""
+    rng = np.random.default_rng(seed)
+    buf = 0.5 * rng.normal(size=(E, C, D))
+    buf[:, C - C // 4:] = 0.0
+    if zero:
+        buf[:] = 0.0
+    wg = rng.normal(size=(E, D, F)) / np.sqrt(D)
+    wu = rng.normal(size=(E, D, F)) / np.sqrt(D)
+    wd = rng.normal(size=(E, F, D)) / np.sqrt(F)
+    return tuple(a.astype(np.float32) for a in (buf, wg, wu, wd))
+
+
+CAPACITY_CASES = [
+    # E, C, D, F, label: aligned, ragged C and F, C = 12 (8 < C < 64),
+    # C < 8, F not a multiple of 64, and an all-zero buffer
+    (4, 128, 64, 128, "aligned"),
+    (3, 72, 48, 40, "ragged"),
+    (3, 12, 16, 24, "C12"),
+    (3, 5, 16, 24, "C5"),
+    (2, 64, 96, 1000, "F1000"),
+    (2, 64, 32, 64, "zero"),
+]
+
+
 def decode_inputs(B, N, G, D, T, *, seed=0):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, N, G, D)).astype(np.float32)
@@ -125,6 +155,7 @@ DECODE_CASES = [
     (4, 2, 1, 64, 128, 48, (1, 17, 40, 48)),      # serving shape, G=1
     (2, 2, 4, 32, 96, 96, (96, 50)),               # GQA, G=4
     (3, 1, 2, 32, 640, 512, (5, 300, 512)),        # long + ragged
+    (2, 2, 2, 32, 64, 40, (0, 17)),                # a row with no valid slot
 ]
 
 
@@ -151,6 +182,54 @@ def test_router_kernel_matches_plain_on_card(cuda, N, D, E, k, ve, case,
                                        atol=1e-5)
     if case == "tie":
         assert (to_np(got[1])[:, :2] == [1, 2]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,D,E,k,ve,case,block_n", ROUTER_CASES)
+def test_gating_router_kernel_matches_plain_on_card(cuda, N, D, E, k, ve,
+                                                    case, block_n, dtype):
+    """B5: one launch of the gate kernel; the fused router is not run."""
+    tdt = TORCH_DTYPES[dtype]
+    x, w = router_inputs(N, D, E, case=case)
+    xc, wc = on(x, cuda, tdt), on(w, cuda, tdt)
+    reset_launch_counts()
+    got = router_topk(xc, wc, k=k, valid_experts=ve)
+    counts = launch_counts()
+    assert counts["router_topk"] == 1 and counts["router_topk_fused"] == 0
+    want = router_topk_ref(xc, wc, k=k, valid_experts=ve)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(to_np(got[1]), to_np(want[1]))
+    np.testing.assert_allclose(to_np(got[0]), to_np(want[0]), rtol=1e-5,
+                               atol=1e-5)
+    if case == "tie":
+        assert (to_np(got[1])[:, :2] == [1, 2]).all()
+    if ve is not None:
+        assert (to_np(got[1]) < ve).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("E,C,D,F,label", CAPACITY_CASES,
+                         ids=[c[-1] for c in CAPACITY_CASES])
+def test_capacity_kernel_matches_plain_on_card(cuda, E, C, D, F, label,
+                                               activation, dtype):
+    """B4: ragged C, D and F are handled inside the kernel; empty slots
+    come out as exact zeros."""
+    tdt = TORCH_DTYPES[dtype]
+    buf, wg, wu, wd = capacity_inputs(E, C, D, F, zero=label == "zero")
+    wu_c = on(wu, cuda, tdt) if activation == "swiglu" else None
+    args = (on(buf, cuda, tdt), on(wg, cuda, tdt), wu_c, on(wd, cuda, tdt))
+    reset_launch_counts()
+    got = capacity_ffn(*args, activation=activation)
+    assert launch_counts()["capacity_ffn"] == 1
+    want = capacity_ffn_ref(*args, activation=activation)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt and got.shape == (E, C, D)
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL[tdt])
+    empty = ~buf.any(-1)
+    assert not to_np(got)[empty].any()
 
 
 @pytest.mark.gpu
@@ -214,3 +293,25 @@ def test_serving_engine_runs_through_the_kernels(cuda, collect_telemetry):
     assert [r.finish_reason for r in done] == ["length"] * 3
     assert counts["router_topk_fused"] > 0 and counts["grouped_moe_ffn"] > 0
     assert (counts["decode_attention"] > 0) == (not collect_telemetry)
+
+
+@pytest.mark.gpu
+def test_runtime_profiles_through_the_dense_kernels(cuda):
+    """A reduced gpt2-moe runtime on the card: calibration launches the
+    capacity FFN kernel, and each capture forward launches it and the
+    fused router once per layer."""
+    from repro_torch.core.runtime import RuntimeConfig, ServerlessMoERuntime
+    reset_launch_counts()
+    rt = ServerlessMoERuntime(RuntimeConfig(
+        arch="gpt2-moe", batch_size=2, seq_len=16, profile_batches=2,
+        learn_batches=1, eval_batches=1))
+    assert launch_counts()["capacity_ffn"] == 6     # warm-up + 5 timed
+    reset_launch_counts()
+    table = rt.profile_table()
+    counts = launch_counts()
+    L = rt.num_layers
+    assert counts["capacity_ffn"] == counts["router_topk_fused"] == 2 * L
+    demand = sum(rt.real_demand(b["tokens"])
+                 for b in rt.corpus.batches(2))
+    assert demand.sum() == 2 * 2 * 16 * rt.top_k * L
+    assert len(table.counts) > 0

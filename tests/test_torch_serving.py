@@ -165,6 +165,12 @@ for n in (3, 5, 4):
     eng.submit(np.arange(n) % cfg.vocab_size, max_new_tokens=3)
 done = eng.run()
 assert [r.finish_reason for r in done] == ["length"] * 3
+import repro_torch.core.runtime, repro_torch.plan, repro_torch.predict
+from repro_torch.core.runtime import RuntimeConfig, ServerlessMoERuntime
+rt = ServerlessMoERuntime(RuntimeConfig(
+    arch="gpt2-moe", batch_size=2, seq_len=8, profile_batches=1,
+    d_model_reduced=32, vocab_reduced=128), device="cpu")
+assert len(rt.profile_table().counts) > 0
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 print("LEAKED", bad)
@@ -172,8 +178,9 @@ print("LEAKED", bad)
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """``import repro_torch`` and a tiny CPU serving run leave ``jax`` and
-    every ``repro`` module out of ``sys.modules``."""
+    """``import repro_torch``, a tiny CPU serving run, the runtime, plan and
+    predict packages and one CPU runtime ``profile_table()`` leave ``jax``
+    and every ``repro`` module out of ``sys.modules``."""
     out = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT],
                          env=dict(os.environ, PYTHONPATH=SRC),
                          capture_output=True, text=True, timeout=120)
