@@ -9,7 +9,9 @@ It imports only ``repro_torch`` (from ``src/``), torch and numpy, and
 prints one JSON line per phase:
 
 1. ``build``: compile every kernel of ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (one process per source, all at once).
+   with ``nvcc`` (one process per source, all at once); then ``sass``:
+   ``cuobjdump -sass`` of the capacity FFN library must show tensor-core
+   instructions (``HGMMA`` or ``HMMA``).
 2. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, in float32 and bfloat16, at the serving path's
    shapes (gpt2-moe: D 768, F 3072, E 4, k 1, GELU; qwen2-moe-a2.7b:
@@ -19,7 +21,9 @@ prints one JSON line per phase:
    harness's bounds (f32 3e-5, bf16 2e-2; the router's float outputs
    1e-5). Times come from CUDA events around single calls with the 50 MB
    L2 cache flushed before each (the serving path meets every layer's
-   weights cold).
+   weights cold). The fused router is also timed at the runtime's
+   1024-token capture batch, and flash-decode at a long cache that it
+   splits across blocks.
 3. ``serve_gpt2``: ``ServingEngine`` on full-width gpt2-moe (12 layers,
    random weights from seed 0) in float32: 4 slots, ``max_len`` 128, six
    prompts of 8-16 tokens from ``numpy.random.default_rng(0)``, 8 new
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,10 +90,14 @@ from repro_torch.models.moe import (FusedRouting, dispatch_grouped,  # noqa: E40
 from repro_torch.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.plan.schema import Workload  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
-# (float32 outside the tensor cores; bfloat16 on them)
+# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type.
+# float32 operands count at the tensor cores' TF32 rate (495 TFLOP/s), not
+# the 67 TFLOP/s of the CUDA cores: the card can multiply float32 data
+# there (the capacity FFN does, as 3xTF32), so the least time the card
+# could take for float32 work is set by that rate. bfloat16 on the tensor
+# cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS_PER_S = {torch.float32: 495e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 ROUTER_FLOAT_TOL = 1e-5
 DTYPES = (torch.float32, torch.bfloat16)
@@ -281,8 +290,8 @@ def sdpa_of(q, k, v, vl):
     return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
 
 
-def time_router(timer, dev, cfg) -> Dict:
-    err, (x, w, k) = check_router(dev, torch.float32, SLOTS, cfg["D"],
+def time_router(timer, dev, cfg, N=SLOTS) -> Dict:
+    err, (x, w, k) = check_router(dev, torch.float32, N, cfg["D"],
                                   cfg["E"], cfg["k"], "timed")
     N, D = x.shape
     E = w.shape[1]
@@ -318,9 +327,21 @@ def time_grouped(timer, dev, cfg) -> Dict:
                      f"active_experts={active} {act} float32"}
 
 
-def time_decode(timer, dev, cfg) -> Dict:
-    err, args = check_decode(dev, torch.float32, SLOTS, cfg["heads"], 1,
-                             cfg["hd"], "timed")
+# a long cache on few (batch row, kv head) blocks: B3 splits it across
+# blocks (split-KV) and merges the splits inside the launch
+LONG_DECODE = dict(B=2, N=2, G=1, D=128, T=4160, kv_len=4096,
+                   valid=(3000, 4096))
+
+
+def time_decode(timer, dev, cfg, long=False) -> Dict:
+    if long:
+        c = LONG_DECODE
+        err, args = check_decode(dev, torch.float32, c["B"], c["N"], c["G"],
+                                 c["D"], "long", T=c["T"],
+                                 kv_len=c["kv_len"], valid=c["valid"])
+    else:
+        err, args = check_decode(dev, torch.float32, SLOTS, cfg["heads"], 1,
+                                 cfg["hd"], "timed")
     q, k, v, vl = args
     lib = sdpa_of(*args)
     check(torch.allclose(lib().reshape(q.shape), decode_attention(*args),
@@ -500,6 +521,12 @@ def phase_kernels(dev) -> Dict[str, Dict]:
     timed["gpt2-moe"]["capacity_ffn"] = time_capacity(timer, dev,
                                                       "gpt2-capture")
     timed["gpt2-moe"]["router_topk"] = time_gating(timer, dev, "gpt2")
+    # B1 at the runtime's capture batch (8 x 128 tokens), beside its decode
+    # time; B3 on a long cache, split across blocks
+    timed["router_topk_fused"] = {
+        "gpt2-moe capture N=1024": time_router(timer, dev, GPT2, N=1024)}
+    timed["decode_attention"] = {
+        "split-kv": time_decode(timer, dev, None, long=True)}
     timed["capacity_ffn"] = {
         f"{label} {dtype}": time_capacity(timer, dev, label, dtype)
         for label, dtype in (("gpt2-calibrate", torch.float32),
@@ -778,6 +805,20 @@ def phase_runtime(dev) -> Dict[str, int]:
 
 # --------------------------------------------------------------------- main
 
+def tensor_core_instructions(name: str) -> Dict[str, int]:
+    """Counts of tensor-core instructions (HGMMA, HMMA by shape and type)
+    in the SASS of the built lib<name>.so, from ``cuobjdump -sass``."""
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    lib = _build.build_dir() / f"lib{name}.so"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts: Dict[str, int] = {}
+    for m in re.finditer(r"\b(HGMMA|HMMA)\.[0-9A-Za-z.]+", out):
+        counts[m.group(0)] = counts.get(m.group(0), 0) + 1
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -799,6 +840,9 @@ def main() -> int:
     build_s = _build.build_all()
     emit("build", seconds=build_s, sources=[s.name for s in _build.sources()],
          directory=str(_build.build_dir().relative_to(ROOT)))
+    tc = tensor_core_instructions("expert_ffn")
+    emit("sass", library="libexpert_ffn.so", tensor_core_instructions=tc)
+    check(sum(tc.values()) > 0, "capacity FFN: no HGMMA/HMMA in its SASS")
 
     timed = phase_kernels(dev)
 

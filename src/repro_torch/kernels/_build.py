@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -75,12 +75,12 @@ def build_all() -> float:
     todo = [s for s in sources() if not _lib_path(s.stem).exists()]
     if not todo:
         return time.perf_counter() - t0
-    nvcc = _nvcc()
+    nvcc_path = nvcc()
     procs = []
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [nvcc_path, *NVCC_FLAGS, "-o", tmp, str(src)]
         procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

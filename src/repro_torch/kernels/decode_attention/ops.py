@@ -15,15 +15,29 @@ from repro_torch.kernels._common import (F32, I64, INT, PTR, dtype_code, ptr,
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 MAX_D, MAX_G, MAX_GD, MAX_B = 256, 16, 1024, 65535   # csrc/decode_attention.cu
+CHUNK = 32            # positions per chunk of csrc/decode_attention.cu
+SPLIT_MIN_CHUNKS = 8  # split-KV only for caches of at least this many chunks
+MAX_SPLITS = 64
 
 
 def _lib():
     lib = _build.library("decode_attention")
     lib.decode_attention.argtypes = [PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                                     INT, INT, I64, I64, I64, I64, F32, PTR,
-                                     PTR]
+                                     INT, INT, I64, I64, I64, I64, F32, INT,
+                                     PTR, PTR, PTR, PTR]
     lib.decode_attention.restype = INT
     return lib
+
+
+def kv_splits(B: int, N: int, T: int, sms: int) -> int:
+    """Blocks per (b, n) along the cache: one, unless the B x N blocks
+    leave most of the ``sms`` SMs idle and the cache spans many chunks;
+    then enough splits for about two blocks per SM, each at least two
+    chunks long."""
+    chunks = -(-T // CHUNK)
+    if B * N >= sms or chunks < SPLIT_MIN_CHUNKS:
+        return 1
+    return min(chunks // 2, -(-2 * sms // (B * N)), MAX_SPLITS)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,11 +71,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"G*D <= {MAX_GD}, B <= {MAX_B}; got B={B} G={G} "
                          f"D={D}")
     out = torch.empty_like(q)
+    splits = kv_splits(B, N, T, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    part = ticket = None
+    if splits > 1:   # per split (m, l, acc); tickets for the last block
+        part = torch.empty(B * N * splits * (2 * G + G * D),
+                           dtype=torch.float32, device=q.device)
+        ticket = torch.zeros(B * N, dtype=torch.int32, device=q.device)
     lib = _lib()
     status = lib.decode_attention(
         ptr(q), ptr(k), ptr(v), ptr(valid_len), code, B, N, G, D, T,
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), D ** -0.5,
-        ptr(out), stream_ptr(q.device))
+        splits, ptr(part) if part is not None else None,
+        ptr(ticket) if ticket is not None else None, ptr(out),
+        stream_ptr(q.device))
     _build.check(lib, status, what)
     decode_attention.launches += 1
     return out

@@ -7,12 +7,13 @@ counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (INT, PTR, dtype_code, ptr,
+from repro_torch.kernels._common import (I64, INT, PTR, dtype_code, ptr,
                                          require_contiguous, require_cuda,
                                          require_same_dtype, stream_ptr)
 from repro_torch.kernels.expert_ffn.ref import capacity_ffn_ref
@@ -25,6 +26,9 @@ def _lib():
     lib.expert_ffn.argtypes = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
                                PTR, PTR, PTR]
     lib.expert_ffn.restype = INT
+    lib.expert_ffn_scratch_floats.argtypes = [INT, INT, INT, INT, INT, INT,
+                                              ctypes.POINTER(I64)]
+    lib.expert_ffn_scratch_floats.restype = INT
     return lib
 
 
@@ -63,13 +67,18 @@ def capacity_ffn(buf: torch.Tensor, w_gate: torch.Tensor,
     if not 1 <= E <= MAX_EXPERTS or min(C, D, F) < 1:
         raise ValueError(f"{what}: needs 1 <= E <= {MAX_EXPERTS} and "
                          f"C, D, F >= 1; got E={E} C={C} D={D} F={F}")
-    # h = act(x Wg [, x Wu]) between the two launches, in float32
-    h = torch.empty((E, C, F), dtype=torch.float32, device=buf.device)
-    out = torch.empty_like(buf)
     lib = _lib()
+    # float32 scratch: h = act(x Wg [, x Wu]) between the two products,
+    # then the partial sums of a product split along its reduction axis
+    floats = I64()
+    _build.check(lib, lib.expert_ffn_scratch_floats(
+        code, E, C, D, F, int(w_up is not None), ctypes.byref(floats)), what)
+    scratch = torch.empty(floats.value, dtype=torch.float32,
+                          device=buf.device)
+    out = torch.empty_like(buf)
     status = lib.expert_ffn(
         ptr(buf), ptr(w_gate), ptr(w_up) if w_up is not None else None,
-        ptr(w_down), code, E, C, D, F, ptr(h), ptr(out),
+        ptr(w_down), code, E, C, D, F, ptr(scratch), ptr(out),
         stream_ptr(buf.device))
     _build.check(lib, status, what)
     capacity_ffn.launches += 1

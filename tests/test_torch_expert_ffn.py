@@ -28,8 +28,8 @@ from repro_torch.kernels.expert_ffn.ops import capacity_ffn
 from repro_torch.kernels.router_topk.ops import router_topk
 from repro_torch.models import Model
 
-from test_torch_gpu import (CAPACITY_CASES, ROUTER_CASES, capacity_inputs,
-                            router_inputs)
+from test_torch_gpu import (CAPACITY_CASES, CAPACITY_PATH_CASES,
+                            ROUTER_CASES, capacity_inputs, router_inputs)
 from test_torch_harness import CPU, PORT_ARCHS, model_pair, np_, t_
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -38,9 +38,15 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 # ------------------------------------------------------------- B4 kernel
 
+# the GPU tests' element-wise staging case joins the parity cases (the
+# split-K calibration shape is too large for interpret mode)
+PARITY_CASES = CAPACITY_CASES + [c for c in CAPACITY_PATH_CASES
+                                 if c[-1] == "unaligned-rows"]
+
+
 @pytest.mark.parametrize("activation", ["gelu", "swiglu"])
-@pytest.mark.parametrize("E,C,D,F,label", CAPACITY_CASES,
-                         ids=[c[-1] for c in CAPACITY_CASES])
+@pytest.mark.parametrize("E,C,D,F,label", PARITY_CASES,
+                         ids=[c[-1] for c in PARITY_CASES])
 def test_capacity_plain_matches_pallas_and_model_layer(E, C, D, F, label,
                                                        activation):
     buf, wg, wu, wd = capacity_inputs(E, C, D, F, zero=label == "zero")
@@ -61,6 +67,46 @@ def test_capacity_plain_matches_pallas_and_model_layer(E, C, D, F, label,
         np.testing.assert_allclose(np_(got), np.asarray(w), **TOL)
     empty = ~buf.any(-1)
     assert not np_(got)[empty].any()            # FFN(0) is exactly 0
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: what ``cvt.rna.tf32.f32`` gives the tensor cores."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tensor_core_product(a: torch.Tensor, b: torch.Tensor,
+                        arithmetic: str) -> torch.Tensor:
+    """a @ b as the capacity FFN kernel (``csrc/expert_ffn.cu``) feeds the
+    tensor cores in float32: ``3xtf32`` splits each operand into a TF32
+    high part and a TF32 residual and sums a_lo b_hi + a_hi b_lo + a_hi
+    b_hi in float32 (lo lo dropped); ``1xtf32`` is a single TF32 product.
+    TF32 x TF32 is exact in float32, so float32 products emulate them."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    if arithmetic == "1xtf32":
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("arithmetic,meets_tolerance",
+                         [("3xtf32", True), ("1xtf32", False)])
+def test_float32_tensor_core_arithmetic_meets_the_kernel_tolerance(
+        arithmetic, meets_tolerance):
+    """The float32 design of B4 on the tensor cores: at gpt2-moe's width
+    (C 64, D 768, F 3072, GELU) 3xTF32 stays within the kernel-vs-plain
+    float32 tolerance (3e-5) of a float64 reference, and a single TF32
+    product does not, which is why the kernel pays for three."""
+    buf, wg, _, wd = capacity_inputs(1, 64, 768, 3072)
+    x, g, d = (torch.from_numpy(a[0]) for a in (buf, wg, wd))
+    h = torch.nn.functional.gelu(tensor_core_product(x, g, arithmetic),
+                                 approximate="tanh")
+    got = tensor_core_product(h, d, arithmetic)
+    h64 = torch.nn.functional.gelu(x.double() @ g.double(),
+                                   approximate="tanh")
+    want = h64 @ d.double()
+    within = np.allclose(got.numpy(), want.numpy(), rtol=3e-5, atol=3e-5)
+    assert within == meets_tolerance, float((got.double() - want).abs().max())
 
 
 # ------------------------------------------------------------- B5 kernel

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                     kv_splits)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.expert_ffn.ops import capacity_ffn
 from repro_torch.kernels.expert_ffn.ref import capacity_ffn_ref
@@ -156,6 +157,21 @@ DECODE_CASES = [
     (2, 2, 4, 32, 96, 96, (96, 50)),               # GQA, G=4
     (3, 1, 2, 32, 640, 512, (5, 300, 512)),        # long + ragged
     (2, 2, 2, 32, 64, 40, (0, 17)),                # a row with no valid slot
+]
+
+
+# the kernels' other paths: B4 split along K (the runtime's calibration
+# shape) and rows that are not whole 16-byte chunks (element-wise
+# staging); B3 split along the cache, a valid length that ends on a chunk
+# edge (chunks of 32), and rows that are not whole 16-byte chunks
+CAPACITY_PATH_CASES = [
+    (4, 64, 768, 3072, "calibrate-split-k"),
+    (2, 20, 36, 70, "unaligned-rows"),
+]
+DECODE_PATH_CASES = [
+    (1, 2, 1, 128, 4096, 4096, (3000,), "split-kv"),
+    (2, 2, 1, 64, 128, 96, (64, 32), "chunk-edge"),
+    (2, 2, 2, 34, 64, 40, (33, 7), "unaligned-rows"),
 ]
 
 
@@ -315,3 +331,75 @@ def test_runtime_profiles_through_the_dense_kernels(cuda):
                  for b in rt.corpus.batches(2))
     assert demand.sum() == 2 * 2 * 16 * rt.top_k * L
     assert len(table.counts) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("E,C,D,F,label", CAPACITY_PATH_CASES,
+                         ids=[c[-1] for c in CAPACITY_PATH_CASES])
+def test_capacity_kernel_paths_repeat_bit_for_bit(cuda, E, C, D, F, label,
+                                                  activation, dtype):
+    """B4's split-K and element-wise paths agree with the plain version,
+    and two calls on the same inputs give the same bits (the split
+    partials are summed in a fixed order, no atomics)."""
+    tdt = TORCH_DTYPES[dtype]
+    buf, wg, wu, wd = capacity_inputs(E, C, D, F)
+    wu_c = on(wu, cuda, tdt) if activation == "swiglu" else None
+    args = (on(buf, cuda, tdt), on(wg, cuda, tdt), wu_c, on(wd, cuda, tdt))
+    reset_launch_counts()
+    got = capacity_ffn(*args, activation=activation)
+    again = capacity_ffn(*args, activation=activation)
+    assert launch_counts()["capacity_ffn"] == 2
+    want = capacity_ffn_ref(*args, activation=activation)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL[tdt])
+    assert not to_np(got)[~buf.any(-1)].any()
+
+
+@pytest.mark.gpu
+def test_capacity_bf16_down_product_takes_h_in_float32(cuda):
+    """In bfloat16 the down product reads h in float32, as the Pallas
+    kernel does: the kernel's bf16 output matches the plain version (h in
+    float32) bit for bit almost everywhere, and a version that rounds h to
+    bf16 first visibly less often."""
+    buf, wg, wu, wd = capacity_inputs(4, 64, 256, 512)
+    args = tuple(on(a, cuda, torch.bfloat16) for a in (buf, wg, wu, wd))
+    got = capacity_ffn(*args, activation="swiglu")
+    want = capacity_ffn_ref(*args, activation="swiglu")
+    x, g, u, d = (a.float() for a in args)
+    h16 = (torch.nn.functional.silu(torch.bmm(x, g)) * torch.bmm(x, u)
+           ).to(torch.bfloat16).float()
+    want_h16 = torch.bmm(h16, d).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    rows = torch.from_numpy(buf.any(-1)).to(cuda)
+    same = (got == want)[rows].float().mean().item()
+    same_h16 = (got == want_h16)[rows].float().mean().item()
+    assert same > 0.95 and same > same_h16 + 0.1, (same, same_h16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,G,D,T,kv_len,valid,label", DECODE_PATH_CASES,
+                         ids=[c[-1] for c in DECODE_PATH_CASES])
+def test_decode_kernel_paths_repeat_bit_for_bit(cuda, B, N, G, D, T, kv_len,
+                                                valid, label, dtype):
+    """B3's split-KV merge (in split order, inside the one launch), a
+    chunk-edge valid length and element-wise staging agree with the plain
+    version; two calls give the same bits."""
+    tdt = TORCH_DTYPES[dtype]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (kv_splits(B, N, kv_len, sms) > 1) == (label == "split-kv")
+    q, k, v = decode_inputs(B, N, G, D, T)
+    qc, kc, vc = (on(a, cuda, tdt) for a in (q, k, v))
+    vl = on(np.asarray(valid, np.int32), cuda)
+    args = (qc, kc[:, :kv_len], vc[:, :kv_len], vl)
+    reset_launch_counts()
+    got = decode_attention(*args)
+    again = decode_attention(*args)
+    assert launch_counts()["decode_attention"] == 2
+    want = decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL[tdt])

@@ -28,8 +28,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.grouped_moe.ops import grouped_moe_ffn
 from repro_torch.kernels.router_topk.ops import router_topk_fused
 
-from test_torch_gpu import (DECODE_CASES, GROUPED_CASES, ROUTER_CASES,
-                            decode_inputs, grouped_inputs, router_inputs)
+from test_torch_gpu import (DECODE_CASES, DECODE_PATH_CASES, GROUPED_CASES,
+                            ROUTER_CASES, decode_inputs, grouped_inputs,
+                            router_inputs)
 from test_torch_harness import np_, t_
 
 TOL = dict(rtol=3e-5, atol=3e-5)
@@ -102,7 +103,8 @@ def test_grouped_plain_matches_pallas(counts, label, activation):
 
 # ----------------------------------------------------------- flash-decode
 
-@pytest.mark.parametrize("B,N,G,D,T,kv_len,valid", DECODE_CASES)
+@pytest.mark.parametrize("B,N,G,D,T,kv_len,valid",
+                         DECODE_CASES + [c[:-1] for c in DECODE_PATH_CASES])
 def test_decode_plain_matches_pallas(B, N, G, D, T, kv_len, valid):
     jdt, tdt = jnp.float32, torch.float32
     q, k, v = decode_inputs(B, N, G, D, T)
