@@ -22,8 +22,11 @@ prints one JSON line per phase:
    1e-5). Times come from CUDA events around single calls with the 50 MB
    L2 cache flushed before each (the serving path meets every layer's
    weights cold). The fused router is also timed at the runtime's
-   1024-token capture batch, and flash-decode at a long cache that it
-   splits across blocks.
+   1024-token capture batch, the grouped FFN in bfloat16 and at prompts
+   of 16 and 128 tokens, and flash-decode at a long cache that it splits
+   across blocks. The ticket workspace of the fused router, which merges
+   its split work inside its one launch, must be all zero afterwards
+   (and again at the end).
 3. ``serve_gpt2``: ``ServingEngine`` on full-width gpt2-moe (12 layers,
    random weights from seed 0) in float32: 4 slots, ``max_len`` 128, six
    prompts of 8-16 tokens from ``numpy.random.default_rng(0)``, 8 new
@@ -40,7 +43,14 @@ prints one JSON line per phase:
    BO over the simulator backend), the simulator's bill, serving six
    prompts through the serving backend (grouped path) and re-planning
    from the live telemetry. One capture forward's logits are held
-   against the plain path on the CPU.
+   against the plain path on the CPU; both bills must equal the ones
+   recorded in ``BILLS``.
+6. ``launch_ops``: ``torch.profiler`` counts the CUDA operations of one
+   wrapper call at the paths' shapes, in a second process of this script
+   (``--launch-ops``) started after the other phases; each count must
+   equal ``DEVICE_OPS_PER_CALL`` (the fused router one launch, the
+   grouped FFN three). No profiler session runs before the timed serving
+   runs (each serving phase profiles only after its timed runs).
 
 The kernels phase also holds the capacity FFN (B4) at the runtime's
 shapes and the gating-only router (B5) against their plain versions.
@@ -72,8 +82,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import Model, ServingEngine, get_arch  # noqa: E402
 from repro_torch.core.runtime import (RuntimeConfig,  # noqa: E402
                                       ServerlessMoERuntime)
-from repro_torch.kernels import (KERNELS, _build, launch_counts,  # noqa: E402
-                                 reset_launch_counts)
+from repro_torch.kernels import (KERNELS, _build,  # noqa: E402
+                                 device_ops_per_call, launch_counts,
+                                 reset_launch_counts, workspace_is_zero)
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.expert_ffn.ops import capacity_ffn  # noqa: E402
@@ -305,15 +316,15 @@ def time_router(timer, dev, cfg, N=SLOTS) -> Dict:
             "shape": f"N={N} D={D} E={E} k={k} float32"}
 
 
-def time_grouped(timer, dev, cfg) -> Dict:
+def time_grouped(timer, dev, cfg, N=SLOTS, dtype=torch.float32) -> Dict:
     act = cfg["activation"]
-    err, (args, counts) = check_grouped(dev, torch.float32, SLOTS, cfg,
-                                        "timed")
+    err, (args, counts) = check_grouped(dev, dtype, N, cfg, "timed")
     buf, te, wg, wu, wd = args
     active = int((counts > 0).sum())
     n_mats = 3 if wu is not None else 2
     D, F_ = cfg["D"], cfg["F"]
-    w_bytes = active * n_mats * D * F_ * 4          # only routed experts
+    # only the routed experts' weights, each read once
+    w_bytes = active * n_mats * D * F_ * wg.element_size()
     pairs = int(counts.sum())
     return {"max_abs_err": err,
             "ms": timer(lambda: grouped_moe_ffn(*args, activation=act)),
@@ -322,9 +333,11 @@ def time_grouped(timer, dev, cfg) -> Dict:
             "plain_ms": timer(lambda: grouped_moe_ref(*args, activation=act)),
             "library_ms": None,
             **bound(2 * nbytes(buf) + nbytes(te) + w_bytes,
-                    2 * pairs * D * F_ * n_mats, torch.float32),
-            "shape": f"pairs={pairs} rows={buf.shape[0]} D={D} F={F_} "
-                     f"active_experts={active} {act} float32"}
+                    2 * pairs * D * F_ * n_mats, dtype),
+            "shape": f"N={N} pairs={pairs} rows={buf.shape[0]} D={D} "
+                     f"F={F_} active_experts={active} "
+                     f"max_rows_per_expert={int(counts.max())} {act} "
+                     f"{str(dtype)[6:]}"}
 
 
 # a long cache on few (batch row, kv head) blocks: B3 splits it across
@@ -525,6 +538,13 @@ def phase_kernels(dev) -> Dict[str, Dict]:
     # time; B3 on a long cache, split across blocks
     timed["router_topk_fused"] = {
         "gpt2-moe capture N=1024": time_router(timer, dev, GPT2, N=1024)}
+    # B2 beside its decode times: bf16, and prompts of 16 and 128 tokens
+    # (gpt2-moe top-1: about 4 and 32 rows per expert)
+    timed["grouped_moe_ffn"] = {
+        "gpt2-moe decode bfloat16": time_grouped(timer, dev, GPT2,
+                                                 dtype=torch.bfloat16),
+        "gpt2-moe prefill N=16": time_grouped(timer, dev, GPT2, N=16),
+        "gpt2-moe prefill N=128": time_grouped(timer, dev, GPT2, N=128)}
     timed["decode_attention"] = {
         "split-kv": time_decode(timer, dev, None, long=True)}
     timed["capacity_ffn"] = {
@@ -537,7 +557,77 @@ def phase_kernels(dev) -> Dict[str, Dict]:
                 f"before each, {timer.iters} calls after 3 warm-up calls, "
                 "host enqueue hidden behind a spin kernel; host_ms: wall "
                 "per synchronised call")
+    check(workspace_is_zero(), "ticket workspace not all zero after the "
+                               "kernels phase")
     return timed["gpt2-moe"]
+
+
+# CUDA operations (kernels, memsets, copies) one wrapper call issues: the
+# fused router merges its slices and tiles inside one launch; the grouped
+# FFN and the capacity FFN launch up, down and a reduce of the split down
+# product
+DEVICE_OPS_PER_CALL = {"router_topk_fused": 1, "grouped_moe_ffn": 3,
+                       "decode_attention": 1, "capacity_ffn": 3,
+                       "router_topk": 1}
+
+
+def ops_per_call(dev) -> Dict[str, Dict[str, int]]:
+    """CUDA operations per wrapper call (``torch.profiler``) at the serving
+    path's shapes of both models, and at the runtime's 1024-token batch
+    for the routers."""
+    ops: Dict[str, Dict[str, int]] = {}
+    for model, cfg in (("gpt2-moe", GPT2), ("qwen2-moe", QWEN2)):
+        for label, N in (("decode", SLOTS), ("prefill", 16)):
+            x, w = router_case(dev, torch.float32, N, cfg["D"], cfg["E"],
+                               cfg["k"])
+            args, _ = grouped_case(dev, torch.float32, N, cfg["D"], cfg["F"],
+                                   cfg["E"], cfg["k"], cfg["activation"])
+            act, k = cfg["activation"], cfg["k"]
+            key = f"{model} {label}"
+            ops.setdefault("router_topk_fused", {})[key] = \
+                device_ops_per_call(lambda: router_topk_fused(x, w, k=k))
+            ops.setdefault("grouped_moe_ffn", {})[key] = device_ops_per_call(
+                lambda: grouped_moe_ffn(*args, activation=act))
+            del args
+    for label in ("gpt2", "qwen2"):
+        c = GATING_CASES[label]
+        x, w = router_case(dev, torch.float32, c["N"], c["D"], c["E"],
+                           c["k"])
+        ops["router_topk_fused"][f"{label} N={c['N']}"] = device_ops_per_call(
+            lambda: router_topk_fused(x, w, k=c["k"]))
+        ops.setdefault("router_topk", {})[f"{label} N={c['N']}"] = \
+            device_ops_per_call(lambda: router_topk(x, w, k=c["k"]))
+    args = decode_case(dev, torch.float32, SLOTS, GPT2["heads"], 1,
+                       GPT2["hd"], MAX_LEN, 32, (9, 17, 25, 32))
+    ops["decode_attention"] = {"gpt2-moe decode": device_ops_per_call(
+        lambda: decode_attention(*args))}
+    E, C, D, F_, act = CAPACITY_SHAPES["gpt2-capture"]
+    cargs = capacity_case(dev, torch.float32, E, C, D, F_, act)
+    ops["capacity_ffn"] = {"gpt2-capture": device_ops_per_call(
+        lambda: capacity_ffn(*cargs, activation=act))}
+    return ops
+
+
+LAUNCH_OPS_FLAG = "--launch-ops"
+
+
+def phase_launch_ops() -> None:
+    """``ops_per_call`` in a fresh process of this script: in the process
+    that has run the profiled serving runs and the runtime loop,
+    ``torch.profiler`` records no CUDA operation (seen on the H100), and
+    a profiling session is not run before the timed serving runs either,
+    since it slows every later launch from the host."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          LAUNCH_OPS_FLAG], capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"launch_ops: the counting process exited "
+                               f"{out.returncode}: {out.stderr[-2000:]}")
+    ops = json.loads(out.stdout.strip().splitlines()[-1])
+    emit("launch_ops", device_ops_per_call=ops)
+    for name, want in DEVICE_OPS_PER_CALL.items():
+        for label, n in ops[name].items():
+            check(n == want, f"{name} {label}: {n} CUDA operations per "
+                             f"call, expected {want}")
 
 
 # ------------------------------------------------------------------ serving
@@ -713,6 +803,19 @@ def check_capture_on_cpu(rt: ServerlessMoERuntime,
     return err
 
 
+# The plan's billed cost (GB-s priced as AWS Lambda) with seed 0 weights
+# and prompts; u_ref_s is clamped to 1e-5 on the H100, so the bills do not
+# depend on the card's speed, only on the plan and the routed demand.
+BILLS = {"simulator": 3.0935478537500005e-05,
+         "serving": 2.6708740754614253e-05}
+
+
+def check_bill(backend: str, cost: float) -> None:
+    want = BILLS[backend]
+    check(np.isfinite(cost) and abs(cost - want) <= 1e-9 * want,
+          f"runtime: {backend} backend billed {cost!r}, expected {want!r}")
+
+
 def phase_runtime(dev) -> Dict[str, int]:
     """The runtime loop of examples/serve_moe_serverless.py (steps 1-3) on
     full-width gpt2-moe: calibrate, profile, BO plan, bill, serve,
@@ -754,8 +857,7 @@ def phase_runtime(dev) -> Dict[str, int]:
     add_counts(totals)
     sim = rt.simulator_backend().execute(
         plan, Workload(batches=rt.eval_batches()))
-    check(np.isfinite(sim.billed_cost) and sim.billed_cost > 0,
-          f"runtime: simulator billed {sim.billed_cost}")
+    check_bill("simulator", sim.billed_cost)
 
     engine = ServingEngine(rt.model, rt.params, max_len=MAX_LEN,
                            batch_size=SLOTS,
@@ -772,8 +874,7 @@ def phase_runtime(dev) -> Dict[str, int]:
     serve_counts = add_counts(totals)
     check(served.extras["finish_reasons"] == ["length"] * len(prompts),
           f"runtime: finish reasons {served.extras['finish_reasons']}")
-    check(np.isfinite(served.billed_cost) and served.billed_cost > 0,
-          f"runtime: serving backend billed {served.billed_cost}")
+    check_bill("serving", served.billed_cost)
     check(serve_counts["router_topk_fused"] > 0 and
           serve_counts["grouped_moe_ffn"] > 0,
           f"runtime: serving launched {serve_counts}")
@@ -835,6 +936,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if LAUNCH_OPS_FLAG in sys.argv[1:]:
+        print(json.dumps(ops_per_call(dev)), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     build_s = _build.build_all()
@@ -854,6 +958,7 @@ def main() -> int:
                                    logits_check=False),
         "runtime_gpt2": phase_runtime(dev),
     }
+    phase_launch_ops()
 
     rows = []
     for name, k in KERNELS.items():
@@ -871,6 +976,7 @@ def main() -> int:
             emit("launch_check", kernel=r["name"], exempt=OFF_PATH[r["name"]])
         else:
             check(r["launches"] > 0, f"{r['name']} never launched on a path")
+    check(workspace_is_zero(), "ticket workspace not all zero at the end")
     emit("done", seconds=time.perf_counter() - t0)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -7,11 +7,18 @@ wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors, and counts its kernel launches in ``<wrapper>.launches``.
 
 ``KERNELS`` names each ported kernel with its wrapper, its source and
-the TPU kernel it replaces.
+the TPU kernel it replaces. :func:`device_ops_per_call` and
+:func:`workspace_is_zero` check, on the card, how many CUDA operations a
+wrapper call issues and that the merging kernels left their tickets
+zero.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
+
+import torch
+
+from repro_torch.kernels._common import workspaces
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.expert_ffn.ops import capacity_ffn
@@ -51,3 +58,49 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.wrapper.launches = 0
+
+
+def device_ops_per_call(fn: Callable[[], object], windows: int = 5) -> int:
+    """CUDA operations (kernels, memsets, copies) that one call of ``fn``
+    puts on the device, counted by ``torch.profiler``.
+
+    A warm-up call (which may build a library or allocate the ticket
+    workspace) and one profiled window that is not counted (it starts
+    the profiler's tracing) come first. Then each window holds one call.
+    The profiler now and then returns a window with no CUDA record at
+    all; such a window is taken again, up to ``2 * windows`` windows in
+    all. Every window with records must give the same count: a count
+    that differs between windows raises."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def window() -> int:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    fn()
+    torch.cuda.synchronize()
+    window()
+    counts = []
+    for _ in range(2 * windows):
+        n = window()
+        if n:
+            counts.append(n)
+        if len(counts) == windows:
+            break
+    if not counts:
+        raise RuntimeError(f"torch.profiler recorded no CUDA operation in "
+                           f"{2 * windows} windows of one call")
+    if len(set(counts)) > 1:
+        raise RuntimeError(f"CUDA operations per call differ between "
+                           f"profiled windows: {counts}")
+    return counts[0]
+
+
+def workspace_is_zero() -> bool:
+    """Every ticket workspace allocated so far is all zero (as it must be
+    between launches)."""
+    return all(int(w.count_nonzero()) == 0 for w in workspaces().values())

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 
@@ -52,3 +52,51 @@ def require_same_dtype(tensors: Sequence[torch.Tensor], what: str) -> None:
     for t in tensors:
         if t.dtype != dt:
             raise TypeError(f"{what}: mixed dtypes {t.dtype} and {dt}")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+# Ticket workspace of the kernels that merge split work inside their own
+# launch (the fused router, and the gating-only router through the same
+# kernel): int32 counters, zeroed once when allocated. A
+# kernel's merging block resets each ticket it used, so the workspace is
+# all zero between launches and no launch needs a memset before it.
+# Assumes the launches that use it run one after another on one stream
+# (the port issues everything on the current stream): two launches in
+# flight at once on different streams would share tickets.
+_WORKSPACE: Dict[int, torch.Tensor] = {}
+WORKSPACE_MIN_INTS = 1 << 14
+
+
+def ticket_workspace(device: torch.device, ints: int) -> torch.Tensor:
+    """The device's zeroed int32 ticket workspace, of at least ``ints``
+    entries. It is allocated (and zeroed) only the first time, and again
+    only when a call needs more entries than it holds."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    ws = _WORKSPACE.get(i)
+    if ws is None or ws.numel() < ints:
+        ws = torch.zeros(max(ints, WORKSPACE_MIN_INTS), dtype=torch.int32,
+                         device=torch.device("cuda", i))
+        _WORKSPACE[i] = ws
+    return ws
+
+
+def workspaces() -> Dict[int, torch.Tensor]:
+    """Each device's ticket workspace allocated so far (for checks that it
+    is all zero between launches)."""
+    return dict(_WORKSPACE)

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import (device_ops_per_call, launch_counts,
+                                 reset_launch_counts, workspace_is_zero)
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                      kv_splits)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -403,3 +404,121 @@ def test_decode_kernel_paths_repeat_bit_for_bit(cuda, B, N, G, D, T, kv_len,
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL[tdt])
+
+
+# ------------------------------- B1 in one launch; B2 at more layouts
+
+# B1 at every token count the plan treats differently (one tile and many
+# slices; a tile edge at 64; many tiles), at gpt2-moe's, qwen2-moe's and
+# the widest expert count, and ties
+ROUTER_LAUNCH_CASES = [
+    (N, E, k, "random") for N in (1, 4, 63, 64, 65, 100, 1024, 4096)
+    for E, k in ((4, 1), (60, 4), (128, 8))
+] + [(4, 60, 4, "tie"), (1024, 60, 4, "tie"), (65, 8, 2, "tie")]
+
+
+def repeat_and_count_checks(fn, ops: int):
+    """Two calls give equal bits, the ticket workspace is zero after them,
+    and a call puts exactly ``ops`` CUDA operations on the device."""
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert workspace_is_zero()
+    assert device_ops_per_call(fn) == ops
+    assert workspace_is_zero()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,E,k,case", ROUTER_LAUNCH_CASES)
+def test_router_kernel_is_one_launch_at_every_size(cuda, N, E, k, case,
+                                                   dtype):
+    """B1 in one launch: partial logits over slices of D and tiles of
+    tokens merged inside it (by tickets); integers exact, floats within
+    1e-5, repeatable bits, one CUDA operation per call."""
+    tdt = TORCH_DTYPES[dtype]
+    x, w = router_inputs(N, 768, E, case=case)
+    xc, wc = on(x, cuda, tdt), on(w, cuda, tdt)
+    reset_launch_counts()
+    got = router_topk_fused(xc, wc, k=k)
+    assert launch_counts()["router_topk_fused"] == 1
+    want = router_topk_fused_ref(xc, wc, k=k)
+    torch.cuda.synchronize()
+    for g, wv in zip(got, want):
+        if g.dtype == torch.int32:
+            np.testing.assert_array_equal(to_np(g), to_np(wv))
+        else:
+            np.testing.assert_allclose(to_np(g), to_np(wv), rtol=1e-5,
+                                       atol=1e-5)
+    if case == "tie":
+        assert (to_np(got[1])[:, :2] == [1, 2]).all()
+    repeat_and_count_checks(lambda: router_topk_fused(xc, wc, k=k), 1)
+    repeat_and_count_checks(lambda: router_topk(xc, wc, k=k), 1)
+
+
+def routed_counts(N, E, k, seed=0):
+    """Per-expert pair counts of N tokens routed top-k at random."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(E, k, replace=False) for _ in range(N)])
+    return tuple(int(c) for c in np.bincount(idx.ravel(), minlength=E))
+
+
+def grouped_device_inputs(counts, D, F, dev, dtype, seed=0):
+    """``grouped_inputs`` with the weights drawn on the card (qwen2-moe's
+    60 experts are 2 GB in float32)."""
+    x, te, _, _, _ = grouped_inputs(counts, 8, 8, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = np.zeros((x.shape[0], D), np.float32)
+    row = 0
+    for c in counts:
+        if c:
+            x[row:row + c] = 0.5 * rng.normal(size=(c, D))
+            row += -(-c // 8) * 8
+    g = torch.Generator(dev).manual_seed(seed)
+    E = len(counts)
+    wg = torch.randn(E, D, F, generator=g, device=dev) / D ** 0.5
+    wu = torch.randn(E, D, F, generator=g, device=dev) / D ** 0.5
+    wd = torch.randn(E, F, D, generator=g, device=dev) / F ** 0.5
+    return (on(x, dev, dtype), on(te, dev), wg.to(dtype), wu.to(dtype),
+            wd.to(dtype))
+
+
+# B2 at the layouts an expert-major design would treat apart: an expert
+# with many tiles at gpt2-moe width; all pairs in one expert with the
+# tail tile's label (E-1) idle and live; qwen2-moe's widths; rows that
+# are not whole 16-byte chunks
+GROUPED_LAUNCH_CASES = [
+    (routed_counts(128, 4, 1), 768, 3072, "gpt2-N128-top1"),
+    ((0, 64, 0, 0), 768, 3072, "all-to-one-tail-idle"),
+    ((0, 0, 0, 64), 768, 3072, "all-to-one-tail-live"),
+    (routed_counts(16, 60, 4), 2048, 1408, "qwen2-N16-top4"),
+    ((5, 0, 13, 2), 36, 70, "odd-widths"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("counts,D,F,label", GROUPED_LAUNCH_CASES,
+                         ids=[c[-1] for c in GROUPED_LAUNCH_CASES])
+def test_grouped_kernel_at_serving_layouts(cuda, counts, D, F, label,
+                                           activation, dtype):
+    """B2 (up, down, reduce of the split-K partials): matches the plain
+    version, repeatable bits, the padding and tail rows exactly zero,
+    three CUDA operations per call."""
+    tdt = TORCH_DTYPES[dtype]
+    x, te, wg, wu, wd = grouped_device_inputs(counts, D, F, cuda, tdt)
+    args = (x, te, wg, wu if activation == "swiglu" else None, wd)
+    reset_launch_counts()
+    got = grouped_moe_ffn(*args, activation=activation)
+    assert launch_counts()["grouped_moe_ffn"] == 1
+    want = grouped_moe_ref(*args, activation=activation)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_np(got), to_np(want), **TOL[tdt])
+    assert not to_np(got)[~to_np(x).any(-1)].any()
+    repeat_and_count_checks(lambda: grouped_moe_ffn(*args,
+                                                 activation=activation), 3)

@@ -30,7 +30,7 @@ from repro_torch.kernels.router_topk.ops import router_topk_fused
 
 from test_torch_gpu import (DECODE_CASES, DECODE_PATH_CASES, GROUPED_CASES,
                             ROUTER_CASES, decode_inputs, grouped_inputs,
-                            router_inputs)
+                            routed_counts, router_inputs)
 from test_torch_harness import np_, t_
 
 TOL = dict(rtol=3e-5, atol=3e-5)
@@ -74,17 +74,26 @@ def zipf_counts(n_tokens, E, k, alpha=1.2, seed=0):
     return tuple(np.bincount(idx.ravel(), minlength=E))
 
 
-# the card's "skewed" counts become a Zipf draw of the reference's traces
-CPU_GROUPED_CASES = [c for c in GROUPED_CASES if c[1] != "skewed"] + [
-    (zipf_counts(40, 8, 2), "zipf")]
+# the card's "skewed" counts become a Zipf draw of the reference's traces;
+# then the layouts the card's tests also hold B2 at, at narrow widths: an
+# expert with many tiles (128 tokens top-1 over 4), all pairs in the last
+# expert (the tail tile's label then live), qwen2-moe's E = 60 and k = 4,
+# and rows that are not whole 16-byte chunks
+CPU_GROUPED_CASES = [(c, label, 32, 48) for c, label in GROUPED_CASES
+                     if label != "skewed"] + [
+    (zipf_counts(40, 8, 2), "zipf", 32, 48),
+    (routed_counts(128, 4, 1), "N128-top1", 32, 48),
+    ((0, 0, 0, 64), "all-to-one-tail-live", 32, 48),
+    (routed_counts(16, 60, 4), "E60-N16-top4", 32, 48),
+    ((5, 0, 13, 2), "odd-widths", 36, 70)]
 
 
 @pytest.mark.parametrize("activation", ["gelu", "swiglu"])
-@pytest.mark.parametrize("counts,label", CPU_GROUPED_CASES,
+@pytest.mark.parametrize("counts,label,D,F", CPU_GROUPED_CASES,
                          ids=[c[1] for c in CPU_GROUPED_CASES])
-def test_grouped_plain_matches_pallas(counts, label, activation):
+def test_grouped_plain_matches_pallas(counts, label, D, F, activation):
     jdt, tdt = jnp.float32, torch.float32
-    x, te, wg, wu, wd = grouped_inputs(counts, 32, 48)
+    x, te, wg, wu, wd = grouped_inputs(counts, D, F)
     wu_j = jnp.asarray(wu, jdt) if activation == "swiglu" else None
     args_j = (jnp.asarray(x, jdt), jnp.asarray(te), jnp.asarray(wg, jdt),
               wu_j, jnp.asarray(wd, jdt))
@@ -99,6 +108,8 @@ def test_grouped_plain_matches_pallas(counts, label, activation):
         np.testing.assert_allclose(np_(got), np.asarray(w, np.float32),
                                    **TOL)
     assert not np_(got)[-8:].any()                # zero tile -> zeros
+    # and so do the padding rows of each group
+    assert not np_(got)[~x.any(-1)].any()
 
 
 # ----------------------------------------------------------- flash-decode
@@ -137,3 +148,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         decode_attention(x.reshape(1, 1, 4, 8), torch.zeros(1, 3, 1, 8),
                          torch.zeros(1, 3, 1, 8),
                          torch.zeros(1, dtype=torch.int32).to("meta"))
+
+
+# ------------------------------------------------- the kernels' launch plans
+
+PLAN_SMS = 132   # the H100's SMs
+
+
+@pytest.mark.parametrize("N,D,E", [
+    (1, 768, 4), (4, 768, 4), (4, 2048, 60), (63, 768, 128), (65, 768, 60),
+    (100, 2048, 60), (1024, 768, 4), (1024, 2048, 60), (4096, 2048, 128),
+    (5, 20, 3)])
+def test_router_plan_covers_the_tokens_and_rows(N, D, E):
+    """B1's one launch: tiles of whole micro-tiles whose logits fit in
+    shared memory, slices of D in whole staged chunks that cover D with
+    no empty slice, and no more blocks than SMs once there are tiles
+    enough to fill them."""
+    from repro_torch.kernels.router_topk.ops import (DC, LG_FLOATS,
+                                                     MAX_SLICES, MAX_TILE,
+                                                     router_plan)
+    p = router_plan(N, D, E, PLAN_SMS)
+    E4 = -(-E // 4) * 4
+    assert p.tile % 4 == 0 and 4 <= p.tile <= MAX_TILE
+    assert p.tile * E4 <= LG_FLOATS
+    assert p.slice_len % DC == 0
+    assert p.slices * p.slice_len >= D > (p.slices - 1) * p.slice_len
+    nt = p.ntiles(N)
+    assert nt == -(-N // p.tile)
+    assert nt * p.slices <= max(PLAN_SMS, nt)
+    assert p.slices <= MAX_SLICES
+    if N <= 4 and D >= 2 * DC:   # decode: one tile, W over several blocks
+        assert nt == 1 and p.slices > 1
