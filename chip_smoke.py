@@ -10,8 +10,9 @@ prints one JSON line per phase:
 
 1. ``build``: compile every kernel of ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, all at once); then ``sass``:
-   ``cuobjdump -sass`` of the capacity FFN library must show tensor-core
-   instructions (``HGMMA`` or ``HMMA``).
+   ``cuobjdump -sass`` of the capacity FFN library and of the grouped FFN
+   library (its long-group path) must show tensor-core instructions
+   (``HGMMA`` or ``HMMA``).
 2. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card, in float32 and bfloat16, at the serving path's
    shapes (gpt2-moe: D 768, F 3072, E 4, k 1, GELU; qwen2-moe-a2.7b:
@@ -21,10 +22,15 @@ prints one JSON line per phase:
    harness's bounds (f32 3e-5, bf16 2e-2; the router's float outputs
    1e-5). Times come from CUDA events around single calls with the 50 MB
    L2 cache flushed before each (the serving path meets every layer's
-   weights cold). The fused router is also timed at the runtime's
-   1024-token capture batch, the grouped FFN in bfloat16 and at prompts
-   of 16 and 128 tokens, and flash-decode at a long cache that it splits
-   across blocks. The ticket workspace of the fused router, which merges
+   weights cold): ``ms`` after a 64 MiB write, and for the grouped FFN
+   also ``ms_clean`` after a 64 MiB read (a clean L2, as a layer meets it
+   after the previous layer's weight stream), beside ``stream_ms`` and
+   ``stream_ms_clean``, one ``torch.sum`` over as many bytes as the
+   grouped FFN must read. The fused router is also timed at the runtime's
+   1024-token capture batch, the grouped FFN in bfloat16, at gpt2-moe
+   prompts of 16, 128 and 512 tokens and at a 128-token qwen2-moe prompt
+   (with the path its plan takes), and flash-decode at a long cache that
+   it splits across blocks. The ticket workspace of the fused router, which merges
    its split work inside its one launch, must be all zero afterwards
    (and again at the end).
 3. ``serve_gpt2``: ``ServingEngine`` on full-width gpt2-moe (12 layers,
@@ -49,7 +55,7 @@ prints one JSON line per phase:
    wrapper call at the paths' shapes, in a second process of this script
    (``--launch-ops``) started after the other phases; each count must
    equal ``DEVICE_OPS_PER_CALL`` (the fused router one launch, the
-   grouped FFN three). No profiler session runs before the timed serving
+   grouped FFN two). No profiler session runs before the timed serving
    runs (each serving phase profiles only after its timed runs).
 
 The kernels phase also holds the capacity FFN (B4) at the runtime's
@@ -89,6 +95,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.expert_ffn.ops import capacity_ffn  # noqa: E402
 from repro_torch.kernels.expert_ffn.ref import capacity_ffn_ref  # noqa: E402
+from repro_torch.kernels._common import sm_count  # noqa: E402
 from repro_torch.kernels.grouped_moe.ops import grouped_moe_ffn  # noqa: E402
 from repro_torch.kernels.grouped_moe.ref import grouped_moe_ref  # noqa: E402
 from repro_torch.kernels.router_topk.ops import (router_topk,  # noqa: E402
@@ -116,6 +123,7 @@ GPT2 = dict(D=768, F=3072, E=4, k=1, activation="gelu", heads=12, hd=64)
 QWEN2 = dict(D=2048, F=1408, E=60, k=4, activation="swiglu", heads=16,
              hd=128)
 SLOTS, MAX_LEN, NEW_TOKENS = 4, 128, 8
+GROUPED_PROMPTS = (16, 128, 512)   # B2's timed gpt2-moe prompt lengths
 # kernels that no model path of either package runs: their launches come
 # from the kernels phase only
 OFF_PATH = {"router_topk": "B5 (gating only) has no model path in either "
@@ -140,21 +148,37 @@ def emit(phase: str, **fields) -> None:
 
 class ColdTimer:
     """Milliseconds of single calls on the device, each bracketed by CUDA
-    events after a 64 MiB write has pushed the inputs out of the 50 MB L2
-    cache. A spin kernel queued first keeps the device busy while the host
+    events after the inputs have been pushed out of the 50 MB L2 cache.
+    A spin kernel queued first keeps the device busy while the host
     enqueues every call, so the events bracket device work, not the
     wrapper's host overhead (``host_ms`` measures that: wall per call,
     synchronised). A call that synchronises itself (the plain grouped FFN
-    reads ``tile_expert`` on the host) still shows its host time."""
+    reads ``tile_expert`` on the host) still shows its host time.
+
+    Two flushes. The default *writes* 64 MiB (``zero_``): it leaves the
+    L2 full of dirty lines, which are written back while the timed call
+    reads. ``clean=True`` *reads* another 64 MiB (a sum into one value),
+    so the timed call finds the L2 clean, as a layer does after the
+    previous layer's weight stream (which read much and wrote little)."""
 
     SPIN_CYCLES = 200_000_000        # about 0.1 s at the H100's clock
 
     def __init__(self, device: torch.device, iters: int = 20):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        self.clean_flush = torch.ones(16 << 20, dtype=torch.float32,
+                                      device=device)
+        self.sink = torch.empty((), dtype=torch.float32, device=device)
         self.iters = iters
 
-    def __call__(self, fn: Callable[[], object]) -> float:
+    def _flush(self, clean: bool) -> None:
+        if clean:
+            torch.sum(self.clean_flush, 0, out=self.sink)
+        else:
+            self.flush.zero_()
+
+    def __call__(self, fn: Callable[[], object], clean: bool = False) -> float:
         for _ in range(3):
+            self._flush(clean)
             fn()
         torch.cuda.synchronize()
         pairs = [(torch.cuda.Event(enable_timing=True),
@@ -162,12 +186,22 @@ class ColdTimer:
                  for _ in range(self.iters)]
         torch.cuda._sleep(self.SPIN_CYCLES)
         for start, end in pairs:
-            self.flush.zero_()
+            self._flush(clean)
             start.record()
             fn()
             end.record()
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / self.iters
+
+    def stream(self, tensors, clean: bool = False) -> float:
+        """ms of one ``torch.sum`` over as many bytes as ``tensors`` hold,
+        copied into one buffer first: the time a plain read of those bytes
+        takes (a yardstick, as ``library_ms`` is; no kernel of the port)."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        out = torch.empty((), dtype=flat.dtype, device=flat.device)
+        ms = self(lambda: torch.sum(flat, 0, out=out), clean=clean)
+        del flat
+        return ms
 
     def host_ms(self, fn: Callable[[], object]) -> float:
         torch.cuda.synchronize()
@@ -316,6 +350,14 @@ def time_router(timer, dev, cfg, N=SLOTS) -> Dict:
             "shape": f"N={N} D={D} E={E} k={k} float32"}
 
 
+def grouped_stream_tensors(args, counts):
+    """What B2 must read: the routed experts' weight matrices and x."""
+    buf, _, wg, wu, wd = args
+    active = [e for e in range(len(counts)) if int(counts[e]) > 0]
+    return [w[e] for w in (wg, wu, wd) if w is not None
+            for e in active] + [buf]
+
+
 def time_grouped(timer, dev, cfg, N=SLOTS, dtype=torch.float32) -> Dict:
     act = cfg["activation"]
     err, (args, counts) = check_grouped(dev, dtype, N, cfg, "timed")
@@ -326,12 +368,20 @@ def time_grouped(timer, dev, cfg, N=SLOTS, dtype=torch.float32) -> Dict:
     # only the routed experts' weights, each read once
     w_bytes = active * n_mats * D * F_ * wg.element_size()
     pairs = int(counts.sum())
+    fn = lambda: grouped_moe_ffn(*args, activation=act)  # noqa: E731
+    stream = grouped_stream_tensors(args, counts)
+    # imported here: scripts/compare_checkout.py imports this module over
+    # an earlier checkout's package, which may have no plan function
+    from repro_torch.kernels.grouped_moe.ops import grouped_plan
+    plan = grouped_plan(buf.shape[0], D, F_, wg.shape[0], dtype,
+                        wu is not None, sm_count(dev))
     return {"max_abs_err": err,
-            "ms": timer(lambda: grouped_moe_ffn(*args, activation=act)),
-            "host_ms": timer.host_ms(
-                lambda: grouped_moe_ffn(*args, activation=act)),
+            "ms": timer(fn), "ms_clean": timer(fn, clean=True),
+            "stream_ms": timer.stream(stream),
+            "stream_ms_clean": timer.stream(stream, clean=True),
+            "host_ms": timer.host_ms(fn),
             "plain_ms": timer(lambda: grouped_moe_ref(*args, activation=act)),
-            "library_ms": None,
+            "library_ms": None, "kernel_path": plan.path,
             **bound(2 * nbytes(buf) + nbytes(te) + w_bytes,
                     2 * pairs * D * F_ * n_mats, dtype),
             "shape": f"N={N} pairs={pairs} rows={buf.shape[0]} D={D} "
@@ -503,9 +553,11 @@ def phase_kernels(dev) -> Dict[str, Dict]:
         cases.append({"kernel": "router_topk_fused", "case": "tie",
                       "dtype": str(dtype), "max_abs_err": err})
         for label, N, cfg in (("gpt2-decode", SLOTS, GPT2),
-                              ("gpt2-prefill", 16, GPT2),
+                              *((f"gpt2-prefill-N{n}", n, GPT2)
+                                for n in GROUPED_PROMPTS),
                               ("qwen2-decode", SLOTS, QWEN2),
-                              ("qwen2-prefill", 16, QWEN2)):
+                              ("qwen2-prefill", 16, QWEN2),
+                              ("qwen2-prefill-N128", 128, QWEN2)):
             err, _ = check_grouped(dev, dtype, N, cfg, label)
             cases.append({"kernel": "grouped_moe_ffn", "case": label,
                           "dtype": str(dtype), "max_abs_err": err})
@@ -538,13 +590,15 @@ def phase_kernels(dev) -> Dict[str, Dict]:
     # time; B3 on a long cache, split across blocks
     timed["router_topk_fused"] = {
         "gpt2-moe capture N=1024": time_router(timer, dev, GPT2, N=1024)}
-    # B2 beside its decode times: bf16, and prompts of 16 and 128 tokens
-    # (gpt2-moe top-1: about 4 and 32 rows per expert)
+    # B2 beside its decode times: bf16, prompts of 16, 128 and 512 tokens
+    # (gpt2-moe top-1: about 4, 32 and 128 rows per expert) and qwen2-moe
+    # at 128 tokens (512 pairs over 60 experts: short groups)
     timed["grouped_moe_ffn"] = {
         "gpt2-moe decode bfloat16": time_grouped(timer, dev, GPT2,
                                                  dtype=torch.bfloat16),
-        "gpt2-moe prefill N=16": time_grouped(timer, dev, GPT2, N=16),
-        "gpt2-moe prefill N=128": time_grouped(timer, dev, GPT2, N=128)}
+        **{f"gpt2-moe prefill N={n}": time_grouped(timer, dev, GPT2, N=n)
+           for n in GROUPED_PROMPTS},
+        "qwen2-moe prefill N=128": time_grouped(timer, dev, QWEN2, N=128)}
     timed["decode_attention"] = {
         "split-kv": time_decode(timer, dev, None, long=True)}
     timed["capacity_ffn"] = {
@@ -554,9 +608,10 @@ def phase_kernels(dev) -> Dict[str, Dict]:
                              ("gpt2-capture", torch.bfloat16))}
     emit("kernels", cases=cases, timed=timed,
          timing="device ms: CUDA events around single calls, L2 flushed "
-                f"before each, {timer.iters} calls after 3 warm-up calls, "
-                "host enqueue hidden behind a spin kernel; host_ms: wall "
-                "per synchronised call")
+                "before each (ms: 64 MiB written; ms_clean: 64 MiB read), "
+                f"{timer.iters} calls after 3 warm-up calls, host enqueue "
+                "hidden behind a spin kernel; host_ms: wall per "
+                "synchronised call")
     check(workspace_is_zero(), "ticket workspace not all zero after the "
                                "kernels phase")
     return timed["gpt2-moe"]
@@ -564,9 +619,9 @@ def phase_kernels(dev) -> Dict[str, Dict]:
 
 # CUDA operations (kernels, memsets, copies) one wrapper call issues: the
 # fused router merges its slices and tiles inside one launch; the grouped
-# FFN and the capacity FFN launch up, down and a reduce of the split down
-# product
-DEVICE_OPS_PER_CALL = {"router_topk_fused": 1, "grouped_moe_ffn": 3,
+# FFN launches up and down (split merges inside clusters); the capacity
+# FFN launches up, down and a reduce of the split down product
+DEVICE_OPS_PER_CALL = {"router_topk_fused": 1, "grouped_moe_ffn": 2,
                        "decode_attention": 1, "capacity_ffn": 3,
                        "router_topk": 1}
 
@@ -577,7 +632,8 @@ def ops_per_call(dev) -> Dict[str, Dict[str, int]]:
     for the routers."""
     ops: Dict[str, Dict[str, int]] = {}
     for model, cfg in (("gpt2-moe", GPT2), ("qwen2-moe", QWEN2)):
-        for label, N in (("decode", SLOTS), ("prefill", 16)):
+        for label, N in (("decode", SLOTS), ("prefill", 16),
+                         ("prefill N=128", 128)):
             x, w = router_case(dev, torch.float32, N, cfg["D"], cfg["E"],
                                cfg["k"])
             args, _ = grouped_case(dev, torch.float32, N, cfg["D"], cfg["F"],
@@ -589,6 +645,11 @@ def ops_per_call(dev) -> Dict[str, Dict[str, int]]:
             ops.setdefault("grouped_moe_ffn", {})[key] = device_ops_per_call(
                 lambda: grouped_moe_ffn(*args, activation=act))
             del args
+    args, _ = grouped_case(dev, torch.float32, 512, GPT2["D"], GPT2["F"],
+                           GPT2["E"], GPT2["k"], GPT2["activation"])
+    ops["grouped_moe_ffn"]["gpt2-moe prefill N=512"] = device_ops_per_call(
+        lambda: grouped_moe_ffn(*args, activation=GPT2["activation"]))
+    del args
     for label in ("gpt2", "qwen2"):
         c = GATING_CASES[label]
         x, w = router_case(dev, torch.float32, c["N"], c["D"], c["E"],
@@ -944,9 +1005,11 @@ def main() -> int:
     build_s = _build.build_all()
     emit("build", seconds=build_s, sources=[s.name for s in _build.sources()],
          directory=str(_build.build_dir().relative_to(ROOT)))
-    tc = tensor_core_instructions("expert_ffn")
-    emit("sass", library="libexpert_ffn.so", tensor_core_instructions=tc)
-    check(sum(tc.values()) > 0, "capacity FFN: no HGMMA/HMMA in its SASS")
+    for lib, what in (("expert_ffn", "capacity FFN"),
+                      ("grouped_moe", "grouped FFN")):
+        tc = tensor_core_instructions(lib)
+        emit("sass", library=f"lib{lib}.so", tensor_core_instructions=tc)
+        check(sum(tc.values()) > 0, f"{what}: no HGMMA/HMMA in its SASS")
 
     timed = phase_kernels(dev)
 
@@ -970,7 +1033,10 @@ def main() -> int:
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "shape": t["shape"]})
+                     "shape": t["shape"],
+                     **{f: t[f] for f in ("ms_clean", "stream_ms",
+                                          "stream_ms_clean", "kernel_path")
+                        if f in t}})
     for r in rows:
         if r["name"] in OFF_PATH:
             emit("launch_check", kernel=r["name"], exempt=OFF_PATH[r["name"]])

@@ -100,3 +100,23 @@ def workspaces() -> Dict[int, torch.Tensor]:
     """Each device's ticket workspace allocated so far (for checks that it
     is all zero between launches)."""
     return dict(_WORKSPACE)
+
+
+# Float32 scratch of the kernels that hand data from one launch to the
+# next (the grouped FFN's h): one per device, contents undefined between
+# calls, grown on demand, so a call after the first at a shape allocates
+# nothing but its output. Same single-stream assumption as the tickets.
+_SCRATCH: Dict[int, torch.Tensor] = {}
+
+
+def scratch_workspace(device: torch.device, floats: int) -> torch.Tensor:
+    """The device's float32 scratch workspace, at least ``floats`` long;
+    allocated again only when a call needs more than it holds."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    ws = _SCRATCH.get(i)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32,
+                         device=torch.device("cuda", i))
+        _SCRATCH[i] = ws
+    return ws

@@ -49,22 +49,6 @@
 #define MAX_G 16
 #define PAIRS (MAX_GD / 32)         // (g, d) accumulators per lane
 
-// 16 bytes from global to shared memory without a register round trip
-// (cp.async.cg: cached in L2 only), in commit groups
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 struct DecodeArgs {
   const void* q;
   const void* k;

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels: TMA tile loads
-// completing on an mbarrier, and wgmma.mma_async with the A operand in
-// registers and B in shared memory: float32 accumulators, m64 rows per
-// warpgroup, n 64 or 128 columns.
+// completing on an mbarrier, programmatic dependent launch, and
+// wgmma.mma_async with the A operand in registers and B in shared memory:
+// float32 accumulators, m64 rows per warpgroup, n 64 or 128 columns.
 //   tf32: k 8, A four .b32 TF32 values per thread (the mma.m16n8k8 A
 //         fragment of each warp's 16 rows);
 //   bf16: k 16, A four .b32 pairs per thread (the mma.m16n8k16 fragment).
@@ -51,6 +51,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- programmatic dependent launch: the next launch on the stream (made
+// with cudaLaunchAttributeProgrammaticStreamSerialization) may start once
+// every block of this one has called launch_dependents (or exited); it
+// calls griddep_wait before it reads what this one writes
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // d = a b + (scale_d ? d : 0)

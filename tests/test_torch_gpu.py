@@ -24,6 +24,8 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.expert_ffn.ops import capacity_ffn
 from repro_torch.kernels.expert_ffn.ref import capacity_ffn_ref
+from repro_torch.kernels._common import sm_count
+from repro_torch.kernels.grouped_moe import ops as grouped_ops
 from repro_torch.kernels.grouped_moe.ops import grouped_moe_ffn
 from repro_torch.kernels.grouped_moe.ref import grouped_moe_ref
 from repro_torch.kernels.router_topk.ops import router_topk, router_topk_fused
@@ -490,28 +492,34 @@ def grouped_device_inputs(counts, D, F, dev, dtype, seed=0):
 # B2 at the layouts an expert-major design would treat apart: an expert
 # with many tiles at gpt2-moe width; all pairs in one expert with the
 # tail tile's label (E-1) idle and live; qwen2-moe's widths; rows that
-# are not whole 16-byte chunks
+# are not whole 16-byte chunks; then the layouts the two paths of the
+# Hopper design treat apart: one expert with 31-200 rows (around the
+# tensor-core path's threshold and its 64-row slab; the tail tile is an
+# all-zero run of its own), a long run followed directly by the next
+# expert's rows (the next expert's rows inside a slab), a tile with one
+# live row among seven zero rows, and the 512-token gpt2-moe and
+# 128-token qwen2-moe layouts
 GROUPED_LAUNCH_CASES = [
     (routed_counts(128, 4, 1), 768, 3072, "gpt2-N128-top1"),
     ((0, 64, 0, 0), 768, 3072, "all-to-one-tail-idle"),
     ((0, 0, 0, 64), 768, 3072, "all-to-one-tail-live"),
     (routed_counts(16, 60, 4), 2048, 1408, "qwen2-N16-top4"),
     ((5, 0, 13, 2), 36, 70, "odd-widths"),
+    *(((n, 0), 768, 3072, f"one-expert-{n}-rows")
+      for n in (31, 32, 33, 63, 64, 65, 200)),
+    ((70, 50, 0, 3), 768, 3072, "long-run-then-next-expert"),
+    ((1, 0, 9, 0), 768, 3072, "one-live-row-in-tile"),
+    (routed_counts(512, 4, 1), 768, 3072, "gpt2-N512-top1"),
+    (routed_counts(128, 60, 4), 2048, 1408, "qwen2-N128-top4"),
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
-@pytest.mark.parametrize("counts,D,F,label", GROUPED_LAUNCH_CASES,
-                         ids=[c[-1] for c in GROUPED_LAUNCH_CASES])
-def test_grouped_kernel_at_serving_layouts(cuda, counts, D, F, label,
-                                           activation, dtype):
-    """B2 (up, down, reduce of the split-K partials): matches the plain
-    version, repeatable bits, the padding and tail rows exactly zero,
-    three CUDA operations per call."""
+def check_grouped_layout(dev, counts, D, F, activation, dtype):
+    """B2 (an up and a down launch, split merges inside clusters): matches
+    the plain version, repeatable bits, the padding and tail rows exactly
+    zero, two CUDA operations per call."""
     tdt = TORCH_DTYPES[dtype]
-    x, te, wg, wu, wd = grouped_device_inputs(counts, D, F, cuda, tdt)
+    x, te, wg, wu, wd = grouped_device_inputs(counts, D, F, dev, tdt)
     args = (x, te, wg, wu if activation == "swiglu" else None, wd)
     reset_launch_counts()
     got = grouped_moe_ffn(*args, activation=activation)
@@ -521,4 +529,44 @@ def test_grouped_kernel_at_serving_layouts(cuda, counts, D, F, label,
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL[tdt])
     assert not to_np(got)[~to_np(x).any(-1)].any()
     repeat_and_count_checks(lambda: grouped_moe_ffn(*args,
-                                                 activation=activation), 3)
+                                                 activation=activation), 2)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("counts,D,F,label", GROUPED_LAUNCH_CASES,
+                         ids=[c[-1] for c in GROUPED_LAUNCH_CASES])
+def test_grouped_kernel_at_serving_layouts(cuda, counts, D, F, label,
+                                           activation, dtype):
+    """B2 on the path its plan picks."""
+    check_grouped_layout(cuda, counts, D, F, activation, dtype)
+
+
+@pytest.fixture(params=["short", "long"])
+def grouped_path(request, monkeypatch):
+    """B2's plan held to one path: the tensor cores' threshold of mean
+    rows per expert set to 0 (long) or past any layout (short)."""
+    monkeypatch.setattr(grouped_ops, "LONG_ROWS",
+                        0 if request.param == "long" else 1 << 30)
+    grouped_ops._plan_ints.cache_clear()
+    yield request.param
+    grouped_ops._plan_ints.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["gelu", "swiglu"])
+@pytest.mark.parametrize("counts,D,F,label", GROUPED_LAUNCH_CASES,
+                         ids=[c[-1] for c in GROUPED_LAUNCH_CASES])
+def test_grouped_kernel_on_both_paths(cuda, grouped_path, counts, D, F,
+                                      label, activation, dtype):
+    """Every layout on the short path (CUDA cores) and on the long one
+    (tensor cores; rows that are not whole 16-byte chunks stay short)."""
+    x = check_grouped_layout(cuda, counts, D, F, activation, dtype)
+    E, elem = len(counts), x.element_size()
+    plan = grouped_ops.grouped_plan(x.shape[0], D, F, E, x.dtype,
+                                    activation == "swiglu", sm_count(cuda))
+    aligned = (D * elem) % 16 == 0 and (F * elem) % 16 == 0
+    assert plan.path == (grouped_path if aligned else "short")

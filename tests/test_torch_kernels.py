@@ -155,6 +155,122 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 PLAN_SMS = 132   # the H100's SMs
 
 
+# B2's plan at the timed shapes (gpt2-moe: D 768, F 3072, E 4, top-1,
+# GELU; qwen2-moe: D 2048, F 1408, E 60, top-4, SwiGLU) with the path each
+# takes: mean rows per expert R / min(E, R / 8) of 8, 12 and 15.6 stream
+# the weights (short), 40 and 136 go to the tensor cores (long)
+GROUPED_PLAN_PATHS = [
+    # tokens, k, E, D, F, swiglu, dtype, path
+    (4, 1, 4, 768, 3072, False, torch.float32, "short"),
+    (4, 1, 4, 768, 3072, False, torch.bfloat16, "short"),
+    (16, 1, 4, 768, 3072, False, torch.float32, "short"),
+    (128, 1, 4, 768, 3072, False, torch.float32, "long"),
+    (512, 1, 4, 768, 3072, False, torch.float32, "long"),
+    (512, 1, 4, 768, 3072, False, torch.bfloat16, "long"),
+    (4, 4, 60, 2048, 1408, True, torch.float32, "short"),
+    (128, 4, 60, 2048, 1408, True, torch.float32, "short"),
+]
+
+
+def _grouped_rows(tokens, k, E):
+    from repro_torch.models.moe import grouped_rows_for
+    return grouped_rows_for(tokens * k, E)
+
+
+@pytest.mark.parametrize("tokens,k,E,D,F,swiglu,dtype,path",
+                         GROUPED_PLAN_PATHS)
+def test_grouped_plan_picks_the_path(tokens, k, E, D, F, swiglu, dtype,
+                                     path):
+    from repro_torch.kernels.grouped_moe.ops import LONG_ROWS, grouped_plan
+    R = _grouped_rows(tokens, k, E)
+    plan = grouped_plan(R, D, F, E, dtype, swiglu, PLAN_SMS)
+    assert plan.path == path
+    assert (R / min(E, R // 8) >= LONG_ROWS) == (path == "long")
+
+
+GROUPED_PLAN_SHAPES = [(t, k, E, D, F, sw, dt)
+                       for t, k, E, D, F, sw, dt, _ in GROUPED_PLAN_PATHS] + [
+    (1, 1, 4, 768, 3072, False, torch.float32),       # one token
+    (1024, 1, 4, 768, 3072, True, torch.float32),     # long, SwiGLU
+    (2048, 4, 60, 2048, 1408, True, torch.bfloat16),  # long, many experts
+    (20, 1, 4, 36, 70, True, torch.float32),          # odd widths: short
+    (300, 1, 2, 36, 70, False, torch.bfloat16),       # odd widths, many rows
+    (64, 2, 8, 96, 160, True, torch.float32),
+    (16, 4, 60, 704, 1000, False, torch.bfloat16),
+    (200, 1, 1, 4096, 8192, False, torch.bfloat16),   # the widest K
+]
+
+
+@pytest.mark.parametrize("tokens,k,E,D,F,swiglu,dtype", GROUPED_PLAN_SHAPES)
+def test_grouped_plan_fits_the_card(tokens, k, E, D, F, swiglu, dtype):
+    """Every product: one cluster of at most 8 blocks holds a column
+    block's K splits (the cluster size is the split count), the slices
+    are whole ring stages and cover K with no empty split, the columns
+    and rows are covered, shared memory within the 227 KB a block may
+    use; the short path stages at most MAX_SLICE rows; the long path's
+    tiles and shared memory are those of ffn_wgmma.cuh, and its grid has a
+    row of blocks for every slab of a layout whose experts' tiles each
+    form one run."""
+    from repro_torch.kernels.grouped_moe import ops
+    R = _grouped_rows(tokens, k, E)
+    plan = ops.grouped_plan(R, D, F, E, dtype, swiglu, PLAN_SMS)
+    ntiles = R // 8
+    elem = 4 if dtype == torch.float32 else 2
+    for prod, K, N, mats in ((plan.up, D, F, 2 if swiglu else 1),
+                             (plan.down, F, D, 1)):
+        assert 1 <= prod.splits <= ops.MAX_CLUSTER
+        assert prod.slice % prod.rows_per_stage == 0
+        assert -(-K // prod.slice) == prod.splits
+        assert prod.col_blocks == -(-N // prod.cols)
+        assert 0 < prod.smem <= ops.SMEM_LIMIT
+        if plan.path == "short":
+            vec = 16 // elem
+            groups = ops.SHORT_THREADS * vec // prod.cols
+            assert prod.threads == ops.SHORT_THREADS
+            assert prod.cols // (32 * vec) in (1, 2, 4)
+            assert prod.rows_per_stage == ops.STAGE_ROWS // mats * groups
+            assert prod.slice <= ops.MAX_SLICE
+            assert prod.row_blocks == ntiles
+            assert prod.stages == ops.RING_STAGES
+            assert prod.smem >= ops.RING_BYTES + 8 * prod.slice * 4
+            assert prod.smem >= groups * mats * 8 * prod.cols * 4
+        else:
+            mode = ("3xtf32" if elem == 4 else
+                    "bf16" if prod is plan.up else "2xtf32")
+            bn, bk, smem = ops._wgmma_smem(mode, mats)
+            assert (prod.cols, prod.rows_per_stage, prod.smem) == (bn, bk,
+                                                                  smem)
+            assert prod.threads == 128
+            assert prod.stages == ops.WGMMA_STAGES
+            assert prod.row_blocks >= -(-ntiles // 8) + min(E, ntiles) - 1
+            assert ntiles * 4 <= prod.smem - 1024
+    assert plan.work_floats >= R * F + ntiles and plan.work_floats % 4 == 0
+    assert len(plan.ints()) == ops.PLAN_INTS
+
+
+def test_grouped_plan_reads_no_tensor(monkeypatch):
+    """The plan is a function of static shapes: it takes no tensor and
+    reads none (a tensor read would raise here), and equal shapes give
+    equal plans."""
+    import inspect
+
+    from repro_torch.kernels.grouped_moe.ops import grouped_plan
+
+    def refuse(*a, **kw):
+        raise AssertionError("grouped_plan read a tensor")
+
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__index__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    sig = inspect.signature(grouped_plan)
+    assert all(p.annotation is not torch.Tensor
+               and "Tensor" not in str(p.annotation)
+               for p in sig.parameters.values())
+    a = grouped_plan(160, 768, 3072, 4, torch.float32, False, PLAN_SMS)
+    b = grouped_plan(160, 768, 3072, 4, torch.float32, False, PLAN_SMS)
+    assert a == b
+
+
 @pytest.mark.parametrize("N,D,E", [
     (1, 768, 4), (4, 768, 4), (4, 2048, 60), (63, 768, 128), (65, 768, 60),
     (100, 2048, 60), (1024, 768, 4), (1024, 2048, 60), (4096, 2048, 128),
